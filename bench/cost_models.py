@@ -1,25 +1,25 @@
 """Single source of truth for per-engine roofline cost models.
 
-VERDICT r4 next-round #3: every ``mxu_fraction`` in the bench record
-rests on hand-written FLOP models with a two-round history of large
-errors (75× wdft undercount in r3, linear-probe collapse in r4) and no
-automated cross-check.  This module is that check's anchor:
+Every ``tc_fraction`` in the bench record rests on hand-written FLOP
+models, which have a history of large errors (a 75× wdft undercount, a
+linear-probe collapse).  This module is the anchor of their automated
+cross-check:
 
 * ``bench.py`` and ``bench/all_configs.py`` import their
   ``flops_per_sample`` numbers from HERE (no inline formulas), and
 * ``tests/bench/test_cost_models.py`` stages each non-Pallas engine at a
   representative shape, compiles it, and asserts the model here agrees
   with XLA's own ``compiled.cost_analysis()['flops']`` within a small
-  factor (Pallas engines — invisible to XLA's counter — are instead
-  pinned to their weight-table shapes, which encode the formulation's
+  factor (the Pallas kernel — invisible to XLA's counter — is instead
+  pinned to its weight-table shapes, which encode the formulation's
   true MAC count).
 
 Conventions:
 
 * All functions return **FLOPs per input sample** (2 FLOPs per MAC),
-  BEFORE the bf16 pass multiplier.  Multiply by :func:`passes` for the
-  MXU-occupancy roofline (a HIGH-precision f32 matmul runs 3 bf16 MXU
-  passes, HIGHEST runs ~6, DEFAULT 1).
+  BEFORE the pass multiplier.  Multiply by :func:`passes` for the
+  bf16 tensor-core roofline (the "high" tier runs 3 bf16 passes,
+  DEFAULT 1; "highest" is counted as 6 bf16-equivalent passes).
 * "Input sample" is the sample the row's Msps counts — the signal
   entering the engine (so resampler output-side work is scaled by
   up/down).
@@ -36,40 +36,35 @@ PASSES = {"highest": 6, "high": 3, "default": 1}
 
 
 def passes(precision: str) -> int:
-    """bf16 MXU pass multiplier for a given matmul precision."""
+    """bf16 pass multiplier for a given matmul precision."""
     return PASSES[precision]
 
 
 # ---------------------------------------------------------------------------
-# FIR — banded block2 formulation (Pallas kernels/block2_fir.py and its
-# XLA fallback share the banded two-matmul structure)
+# FIR — banded block2 formulation (ops/fir.py)
 # ---------------------------------------------------------------------------
 
 def fir_block2_flops_per_sample(ntaps: int) -> float:
     """Banded block2 FIR: each 128-sample output tile contracts a
-    ``band_k(ntaps, block)``-lane window (kernels/block2_fir.py tables
-    have shape ``(block//128, kb, 128)``), so MACs/sample = kb.
+    ``band_k(ntaps, block)``-row window, so MACs/sample = kb.
     1024 taps → kb = 1152 (1.125× the 1024-MAC ideal — the band is
-    rounded up to whole 128-lane tiles)."""
-    from llzlab_tpu.kernels.block2_fir import band_k
-    from llzlab_tpu.ops.fir import block2_block
+    rounded up to whole 128-row tiles)."""
+    from llzlab_tpu.ops.fir import band_k, block2_block
 
     kb = band_k(ntaps, block2_block(ntaps))
     return 2.0 * kb
 
 
 # ---------------------------------------------------------------------------
-# Polyphase resampler — dense slab group matmul (ops/resample.py; the
-# fused Pallas kernel's stage 2 uses the same bank padded to 128 lanes)
+# Polyphase resampler — dense slab group matmul (ops/resample.py)
 # ---------------------------------------------------------------------------
 
 def resample_flops_per_sample(up: int, down: int, k: int,
                               padded: bool = True) -> float:
     """Group matmul ``slab (…, down+k−1) @ Wᵀ (down+k−1, up)``: each
     group of ``down`` input samples costs ``k2·up`` MACs.  ``padded``
-    counts the MXU's 128-lane contraction padding (what the TPU
-    actually executes: 147/160/64 → K 223→256); the XLA HLO contracts
-    the unpadded k2 (what ``cost_analysis`` sees)."""
+    counts a 128-wide contraction padding (147/160/64 → K 223→256); the
+    XLA HLO contracts the unpadded k2 (what ``cost_analysis`` sees)."""
     k2 = down + k - 1
     if padded:
         k2 = -(-k2 // 128) * 128
@@ -77,23 +72,25 @@ def resample_flops_per_sample(up: int, down: int, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Fused FIR+resample Pallas kernel (kernels/fused_fir_resample.py)
+# Fused FIR+resample composite map (ops/fused_chain.py and the Pallas
+# kernel kernels/fused_fir_resample.py)
 # ---------------------------------------------------------------------------
 
-def fused_chain_flops_per_sample(ntaps: int, up: int, down: int,
-                                 k: int) -> float:
-    """Stage 1 banded FIR (kb MACs/sample, PLUS one duplicated halo
-    y-block per program — the resampler lookback recompute, a
-    ``(nyb)/(nyb−1)`` factor ≈ 1.05 at the 1024-tap headline shape)
-    + stage 2 padded group matmul."""
-    from llzlab_tpu.kernels.fused_fir_resample import fused_program_in
-    from llzlab_tpu.ops.fir import block2_block
+def fused_chain_flops_per_sample(ntaps: int, up: int, down: int, k: int,
+                                 padded: bool = False) -> float:
+    """Composite map: ``nparts = ceil(((k−1)+(ntaps−1))/down) + 1``
+    weight blocks of ``(down, up)`` per group of ``down`` inputs →
+    ``nparts·up`` MACs/sample (1024 taps, 147/160/64 → 8·147 = 1176).
+    ``padded`` counts the kernel's tiles (``down`` and ``up`` rounded up
+    to its K chunk and N tile: 147 → 192)."""
+    from llzlab_tpu.kernels.fused_fir_resample import _tile_k, _tile_n
 
-    block = block2_block(ntaps)
-    p_in = fused_program_in(ntaps, up, down)
-    nyb = p_in // block + 1
-    fir = fir_block2_flops_per_sample(ntaps) * nyb / (nyb - 1)
-    return fir + resample_flops_per_sample(up, down, k, padded=True)
+    nparts = -(-((k - 1) + (ntaps - 1)) // down) + 1
+    if padded:
+        bk, bn = _tile_k(down), _tile_n(up)
+        return 2.0 * nparts * (-(-down // bk) * bk) * (-(-up // bn) * bn) \
+            / down
+    return 2.0 * nparts * up
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +99,7 @@ def fused_chain_flops_per_sample(ntaps: int, up: int, down: int,
 
 def rfft_dense_flops_per_sample(n: int) -> float:
     """Dense rDFT: one (B, n) @ (n, n/2) cos/sin matmul pair → n
-    MACs/sample (DC is a VPU row-sum, not counted)."""
+    MACs/sample (DC is a row-sum, not counted)."""
     return 2.0 * n
 
 
@@ -141,7 +138,7 @@ def rfft_flops_per_sample(n: int, precision: str) -> float:
 def iir_matmul_flops_per_sample(n_sections: int, block_size: int = 254
                                 ) -> float:
     """Per section one (L+2, L) triangular-map matmul per L-sample
-    block → (L+2) MACs/sample/section (254 → exact 256 MXU tile)."""
+    block → (L+2) MACs/sample/section (254 → a 256-wide contraction)."""
     return 2.0 * (block_size + 2) * n_sections
 
 
@@ -171,8 +168,8 @@ def cwola_flops_per_sample(n_fft: int, hop: int) -> float:
 def channelizer_flops_per_sample(ntaps: int, up: int, down: int, k: int,
                                  n_fft: int, precision: str,
                                  frames_engine: str = "auto") -> float:
-    """Fused FIR+resample + the spectral framing engine on the
-    resampled stream (scaled by up/down to per-INPUT-sample)."""
+    """Fused FIR+resample (composite map) + the spectral framing engine
+    on the resampled stream (scaled by up/down to per-INPUT-sample)."""
     if frames_engine == "pair":
         fft = rfft_pair_flops_per_sample(n_fft)
     else:

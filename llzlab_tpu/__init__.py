@@ -1,15 +1,15 @@
-"""llzlab_tpu — a TPU-native DSP framework.
+"""llzlab_tpu — a JAX DSP framework for NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas re-design of the capability surface of the
 ``templeblock/llzlab`` C audio lab (reference mount at /root/reference was
 empty at survey time; the binding spec is /root/repo/BASELINE.json — see
 SURVEY.md §0).  Capabilities: FFT/STFT transforms, FIR design + overlap-save
 fast convolution, IIR biquad cascades as parallel scans, polyphase rational
-resampling, and composed multi-channel chains sharded over TPU meshes.
+resampling, and composed multi-channel chains sharded over device meshes.
 
 Layering (SURVEY.md §1b):
     runtime/  — mesh + platform bootstrap           (T0)
-    kernels/  — Pallas TPU kernels                  (T1)
+    kernels/  — Pallas GPU kernels                  (T1)
     ops/      — user-facing numerical ops           (T2)
     parallel/ — sharding strategies (DP/SP/carry)   (T3)
     pipeline/ — chain composition + streaming       (T4)

@@ -24,18 +24,17 @@ __all__ = ["add_io_args", "pin_backend", "run_chain_tool"]
 
 
 def pin_backend(args):
-    """Apply ``--cpu`` BEFORE any jax array is created.
+    """Apply ``--cpu`` and turn on the persistent compile cache BEFORE any
+    jax array is created (stage constructors device-put their tap tables,
+    which would initialise the default backend).  Must be the first call
+    after ``parse_args`` in every tool."""
+    import jax
 
-    Must be the first call after ``parse_args`` in every tool: stage
-    constructors device-put their tap tables, and on this environment the
-    default platform is the remote (exclusive, slow-first-transfer) TPU —
-    an array placed there before the CPU pin would stall jit lowering for
-    minutes when the constant is fetched back.
-    """
+    from llzlab_tpu.runtime.platform import enable_compile_cache
+
     if getattr(args, "cpu", False):
-        import jax
-
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
 
 def add_io_args(p: argparse.ArgumentParser):

@@ -1,6 +1,7 @@
 """User-facing numerical ops (SURVEY.md layer T2).
 
-Every op has a pure-jnp path that runs on CPU/TPU and is jit/vmap-able;
+Every op has a pure-jnp path that runs on the CPU and the GPU and is
+jit/vmap-able;
 Pallas fast paths live in ``llzlab_tpu.kernels`` and are dispatched from
 here where profitable.
 """

@@ -3,10 +3,10 @@
 Reference counterpart: none upstream (the C lab's spectral zoom was done
 by hand with FFT + decimation); these complete the transform family
 (SURVEY.md §2a row 1) with scipy.signal.czt / ZoomFFT / resample
-semantics, TPU-first:
+semantics:
 
 * CZT uses Bluestein's factorisation  X_k = w^{k²/2} · IFFT(FFT(x·A) ⊙
-  FFT(chirp))  — two batched FFTs on the MXU matmul-FFT path, chirp
+  FFT(chirp))  — two batched FFTs, chirp
   tables built once on host in float64;
 * Fourier resampling is rfft → band trim/pad → irfft, matching
   ``scipy.signal.resample`` including the even-bin halving convention.

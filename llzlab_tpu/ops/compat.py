@@ -1,10 +1,10 @@
-"""scipy.signal-compatible front doors over the TPU-native engines.
+"""scipy.signal-compatible front doors over the framework's engines.
 
 Capability parity target: the reference's design/analysis entry points
 (``llz_fir.c``/``llz_iir.c`` designers — mount empty, spec anchor
 BASELINE.json:5) PLUS the scipy-shaped API a migrating user expects.
 Everything here is a thin, TESTED adapter: the numerics live in
-``ops.iir`` (f64 zpk pipeline), ``ops.convolve`` (MXU fft convolution),
+``ops.iir`` (f64 zpk pipeline), ``ops.convolve`` (fft convolution),
 ``ops.analysis`` and friends.  Functions that are pure coefficient math
 (design, conversions, initial conditions) are host-side float64 numpy
 by design — they run once per filter, not per sample; everything on
@@ -285,12 +285,12 @@ def freqs(b, a, worN=200):
 
 
 # ---------------------------------------------------------------------------
-# convolution family (MXU fft path underneath)
+# convolution family (fft path underneath)
 # ---------------------------------------------------------------------------
 
 def convolve(in1, in2, mode="full", method="auto"):
     """1-D convolution on the last axis (scipy.signal.convolve for 1-D;
-    ``method`` "fft"/"auto" run the MXU fft path, "direct" uses
+    ``method`` "fft"/"auto" run the fft path, "direct" uses
     jnp.convolve)."""
     if method == "direct":
         a = jnp.asarray(in1)
@@ -302,15 +302,15 @@ def convolve(in1, in2, mode="full", method="auto"):
 
 
 def oaconvolve(in1, in2, mode="full"):
-    """Overlap-add convolution (delegates to the fft engine — on TPU the
-    whole transform is already block-factored MXU matmuls, so a separate
-    OA segmentation adds nothing; semantics match scipy.oaconvolve 1-D)."""
+    """Overlap-add convolution (delegates to the fft engine: one batched
+    transform, so a separate OA segmentation adds nothing; semantics match
+    scipy.oaconvolve 1-D)."""
     return _fftconvolve(jnp.asarray(in1), jnp.asarray(in2), mode=mode)
 
 
 def upfirdn(h, x, up=1, down=1):
     """Upsample–FIR–downsample with scipy.signal.upfirdn's exact output
-    length, on the MXU fft-convolution path: zero-stuff by ``up``,
+    length, on the fft-convolution path: zero-stuff by ``up``,
     convolve "full" with ``h``, take every ``down``-th sample."""
     x = jnp.asarray(x)
     h = jnp.asarray(h, jnp.float32 if x.dtype != jnp.float64 else x.dtype)
@@ -355,7 +355,7 @@ def unit_impulse(shape, idx=None, dtype=np.float64):
 def lombscargle(x, y, freqs, precenter=False, normalize=False):
     """Lomb–Scargle periodogram for unevenly sampled data
     (scipy.signal.lombscargle's classic Scargle formulation).  The
-    trig sums are batched outer products — they run as dense MXU-friendly
+    trig sums are batched outer products — they run as dense matrix-unit-friendly
     jnp reductions."""
     x = jnp.asarray(x, jnp.float32)
     y = jnp.asarray(y, jnp.float32)

@@ -2,7 +2,7 @@
 
 Core lab utility (the reference's fast-conv machinery generalised beyond
 the streaming FIR path): full/same/valid 1-D convolution of arbitrary
-pairs via the matmul-FFT on TPU, batched over leading dims.
+pairs via the FFT, batched over leading dims.
 """
 
 from __future__ import annotations

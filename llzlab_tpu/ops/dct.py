@@ -3,10 +3,10 @@
 Capability companion to the MDCT (SURVEY.md §2b row 14): codec and
 spectral-analysis pipelines need plain block cosine/sine transforms too.
 
-TPU-first design: like ops/mdct.py, each transform is a dense ``(N, N)``
-matrix built once on host in float64 and applied as one batched MXU
-matmul at f32/HIGHEST — for the codec-scale N (≤ 4096) used in DSP
-chains this is faster on TPU than any radix factorisation and exact to
+Design: like ops/mdct.py, each transform is a dense ``(N, N)`` matrix
+built once on host in float64 and applied as one batched matmul at
+f32/HIGHEST — for the codec-scale N (≤ 4096) used in DSP chains a
+matrix unit runs this faster than a radix factorisation, exact to
 f32 rounding.  Matches ``scipy.fft.dct/dst`` conventions (types 1–4,
 ``norm=None | "ortho"``).
 """

@@ -1,8 +1,8 @@
-"""Biquad-cascade filtering as dense triangular MXU matmuls.
+"""Biquad-cascade filtering as dense triangular matmuls.
 
-The parallel-scan sosfilt (ops/iir.py) is VPU-bound: an associative scan
-over 2×2 transitions runs ~300 Msps/chip on v5e.  This engine moves the
-recurrence onto the MXU (BASELINE.json:5 "IIR biquad cascades re-expressed
+The parallel-scan sosfilt (ops/iir.py) is elementwise work: an
+associative scan over 2×2 transitions.  This engine moves the recurrence
+onto matrix products (BASELINE.json:5 "IIR biquad cascades re-expressed
 as parallel-scan" — here the scan *is* a matmul).
 
 Design (per section, blocks of ``L`` samples):
@@ -47,6 +47,7 @@ from jax import lax
 
 from llzlab_tpu.ops.iir import section_realization
 from llzlab_tpu.ops.transform import matmul_precision as _matmul_precision
+from llzlab_tpu.ops.transform import prec_enum
 
 __all__ = ["sosfilt_matmul"]
 
@@ -164,10 +165,8 @@ def _out_matmul(xaug, Yaug, prec):
     """The per-section (B, nblk, L+2) @ (L+2, L) output matmul.
 
     An explicit 2-way-bf16-split compensated product ("bf16x4") was
-    tried here in r2 and retired: a two-bf16 split carries only 16
-    mantissa bits, and the TPU-measured result was 46.5 dB at 3719 Msps
-    — dominated by both HIGH (84.7 dB @ 5250) and HIGHEST (137.2 dB @
-    4770) on every axis (bench/tpu_sweep.py --suite iir).
+    tried here and retired: a two-bf16 split carries only 16 mantissa
+    bits, and it lost to both HIGH and HIGHEST on speed and SNR.
     """
     return jnp.einsum("bjm,mn->bjn", xaug, Yaug, precision=prec,
                       preferred_element_type=jnp.float32)
@@ -275,18 +274,15 @@ def sosfilt_matmul(
     return_zf: bool = False,
     precision: Optional[str] = None,
 ):
-    """MXU-matmul biquad cascade (drop-in for :func:`llzlab_tpu.sosfilt`).
+    """Matmul biquad cascade (drop-in for :func:`llzlab_tpu.sosfilt`).
 
     Default ``block_size=254`` makes the per-section contraction
-    K = L+2 = 256 — an exact MXU tile.  Measured on v5e (64ch × 94208
-    net of dispatch, r4): L=254 → 5826 Msps @ high / 4242 @ highest vs
-    L=128's 3400 / 2970 (+71 % / +43 %): at L=128 the MXU pads K
-    130→256, so the L=254 MAC cost was already being paid with half the
-    tile wasted.  L ≥ 510 regresses (MACs/sample = L+2 keeps growing).
+    K = L+2 = 256, a whole number of matrix tiles (MACs/sample = L+2
+    grows with L, so longer blocks cost more).
 
     Same state convention as sosfilt (``(..., ns, 2)`` in the per-section
-    scan realization), so states interchange between engines.  Prefer this
-    on TPU for throughput; prefer the scan engine for bit-matched
+    scan realization), so states interchange between engines.  Prefer the
+    scan engine for bit-matched
     streaming splits (BASELINE.json:9).
 
     ``precision`` ("highest" | "high" | "default") overrides the global
@@ -311,14 +307,7 @@ def sosfilt_matmul(
             b0, b1, b2, _, a1, a2 = (float(v) for v in row)
             tables.append(_companion_tables(a1, a2, b0, b1, b2, L))
     t = int(x.shape[-1])
-    if precision is None:
-        prec = _matmul_precision()
-    else:
-        prec = {
-            "highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT,
-        }[precision]
+    prec = _matmul_precision() if precision is None else prec_enum(precision)
     run = _run_cached(tuple(kinds), L, bool(return_zf), t, prec)
     nb = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
     ns = sos_np.shape[0]

@@ -3,9 +3,9 @@
 Capability parity target: the reference's ``llz_mdct.c/h`` (MDCT via FFT
 for codec windowing; mount empty — SURVEY.md §2b row 14).
 
-TPU-first design: for codec-scale frames (N ≤ 4096) the MDCT is a dense
+Design: for codec-scale frames (N ≤ 4096) the MDCT is a dense
 ``(N, 2N)`` cosine matrix applied to 50 %-overlapped windowed frames —
-one batched MXU matmul at f32/HIGHEST, no twiddle bookkeeping, exactly
+one batched matmul at f32/HIGHEST, no twiddle bookkeeping, exactly
 the philosophy of the matmul FFT (ops/transform.py).  The matrix is
 built once on host in float64.
 

@@ -5,11 +5,11 @@ polyphase FIR bank with per-output phase walk; mount empty — spec anchors
 BASELINE.json:5 "polyphase rational resampling" and BASELINE.json:8
 "147/160, 64 taps/phase, 8 channels").
 
-TPU-first design: the serial phase walk
+Design: the serial phase walk
 
     y[m] = Σ_j h[L·j + (m·M mod L)] · x[m·M//L − j]
 
-is gather-free on the MXU when outputs are grouped L at a time.  For output
+is a gather-free matmul when outputs are grouped L at a time.  For output
 group ``s`` (outputs m = L·s+p), every window lives inside the slab
 ``x[s·M − (K−1) .. s·M + M − 1]`` of ``M+K−1`` samples.  Scattering each
 phase's ``K`` taps into a dense ``(L, M+K−1)`` weight matrix ``W`` (done
@@ -18,7 +18,7 @@ once, on host) turns the whole group into one matmul:
     y[s, :] = slab[s, :] @ W.T        # (S, M+K−1) @ (M+K−1, L)
 
 For 147/160 × 64 taps that is a (·,223)×(223,147) matmul — 3.5× zero
-padding in FLOPs, fully dense, zero gathers, MXU-bound.  Numerics are
+padding in FLOPs, fully dense, zero gathers, matmul-bound.  Numerics are
 identical to ``scipy.signal.upfirdn(h, x, L, M)`` truncated to
 ``ceil(T·L/M)`` outputs (causal, zero initial history).
 """
@@ -211,7 +211,7 @@ def _resample_impl(x, w, zi, *, up, down, k, return_zf):
     y = jnp.einsum(
         "bsk,pk->bsp", slab, w,
         preferred_element_type=jnp.float32,
-        precision=matmul_precision(),  # TPU f32 default is 1-pass bf16
+        precision=matmul_precision(),  # GPU f32 default is 1-pass TF32
     )
     n_out = resample_output_len(t, up, down)
     y = y.reshape(b, s_groups * up)[:, :n_out]

@@ -2,7 +2,7 @@
 
 Capability parity target: the reference lab's ad-hoc test-vector
 generation in its tool frontends (SURVEY.md §1a L4 / T5; mount empty).
-Host-side float64 numpy — these produce *inputs* for the TPU chains and
+Host-side float64 numpy — these produce *inputs* for the device chains and
 goldens, they are not hot ops.  Semantics match scipy.signal where a
 counterpart exists (chirp, square, sawtooth, gausspulse).
 """

@@ -2,11 +2,11 @@
 
 Reference counterpart: none in the upstream C lab (SURVEY.md §2 covers
 rows 1-15); these extend the framework's analysis surface with the
-scipy.signal smoothing family, built TPU-first:
+scipy.signal smoothing family:
 
 * windows are materialised as ``k`` shifted zero-copy slices (never a
-  gather), so sliding statistics (median, local mean/var) vectorise on
-  the VPU and polynomial smoothing lowers to one FIR pass on the MXU;
+  gather), so sliding statistics (median, local mean/var) vectorise
+  and polynomial smoothing lowers to one FIR pass;
 * all ops are jit-able, batched over leading axes.
 """
 
@@ -129,7 +129,7 @@ def savgol_filter(
 
     ``mode="interp"`` (default, as scipy) fits a polynomial to the first
     and last ``window_length`` samples for the edges; other modes pad.
-    Device op: the interior is one FFT convolution (MXU path).
+    Device op: the interior is one FFT convolution (matmul path).
     """
     x = jnp.asarray(x, jnp.float32)
     taps = savgol_coeffs(window_length, polyorder, deriv=deriv, delta=delta)
@@ -173,8 +173,8 @@ def medfilt(x: jnp.ndarray, kernel_size: int = 3) -> jnp.ndarray:
     """Sliding median along the last axis (scipy.signal.medfilt semantics:
     odd ``kernel_size``, zero padding at the edges).
 
-    TPU-first: the window is ``kernel_size`` shifted zero-copy slices
-    stacked on a new axis, sorted on the VPU — no gathers, no loops.
+    The window is ``kernel_size`` shifted zero-copy slices stacked on a
+    new axis and sorted — no gathers, no loops.
     """
     if kernel_size % 2 != 1:
         raise ValueError("kernel_size must be odd")

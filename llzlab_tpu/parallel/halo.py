@@ -3,9 +3,9 @@
 The DSP analog of blockwise ring attention: each time shard needs the last
 ``h`` input samples of its left neighbour (overlap-save history for FIR,
 input history for the polyphase resampler).  One non-circular ``ppermute``
-per block — nearest-neighbour ICI traffic (BASELINE.json:5 "exchanging
-overlap-save edge samples ... via ICI collectives (ppermute halo
-exchange)").  All functions here run *inside* ``shard_map``.
+per block — nearest-neighbour traffic (BASELINE.json:5 "exchanging
+overlap-save edge samples ... (ppermute halo exchange)"), which XLA
+hands to NCCL on GPUs.  All functions here run *inside* ``shard_map``.
 """
 
 from __future__ import annotations

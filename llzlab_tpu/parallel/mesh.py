@@ -4,9 +4,10 @@ The reference is serial C (no threads/processes/devices) — parallelism is
 a first-class component of this framework, not a port.  Channels are
 embarrassingly parallel (channel-DP, no steady-state communication); time
 is sequence-parallel (time-SP) with overlap-save halos and filter-state
-carries over ICI (BASELINE.json:5).  Mesh axis order puts ``time`` on the
-fastest-varying (ICI-ring) axis so halo ppermutes ride nearest-neighbour
-links, and ``channel`` on the outer axis where DCN hops are tolerable.
+carries between neighbouring shards (BASELINE.json:5).  The mesh follows
+the algorithm alone: on one host the cards reach each other all to all
+(NVLink), so any placement of the axes costs the same; across hosts
+``channel`` is the outer axis, where the slower links are tolerable.
 """
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ def make_dsp_mesh(
     """Build a ``(channel, time)`` mesh over ``devices`` (default: all).
 
     With only a device count available, the split favours the time axis
-    (halo traffic is nearest-neighbour and cheap; channel-DP needs none,
-    so any factorisation is communication-optimal — time-major keeps
-    single-channel streams scalable).
+    (halo traffic is small; channel-DP needs none, so any factorisation
+    is communication-optimal — time-major keeps single-channel streams
+    scalable).
     """
     devs = list(devices) if devices is not None else list(jax.devices())
     n = len(devs)

@@ -73,7 +73,7 @@ def _delay(x: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
 
 
 def _fir_with_traced_taps(x: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
-    """Direct causal FIR where taps are a traced array (conv on MXU)."""
+    """Direct causal FIR where taps are a traced array (conv on matrix-unit)."""
     shape = x.shape
     xb = x.reshape(-1, shape[-1])
     ntaps = taps.shape[0]

@@ -1,10 +1,12 @@
 """Multi-host bootstrap: jax.distributed + global mesh + global arrays.
 
-SURVEY.md layer T0 / §2e: ICI carries intra-slice collectives, DCN carries
-inter-host; ``jax.distributed.initialize`` wires the processes together
-and every jit over a global mesh emits the right transport automatically.
-The local fake-DCN fixture (scripts/multihost_fir_demo.py) runs N CPU
-processes on one machine — same process boundaries, no ICI performance.
+SURVEY.md layer T0 / §2e: NVLink carries the collectives between the
+cards of one host, the network those between hosts (DCN);
+``jax.distributed.initialize`` wires the processes together and every
+jit over a global mesh emits the right transport automatically.  The
+local fake-DCN fixture (scripts/multihost_fir_demo.py) runs N CPU
+processes on one machine — same process boundaries, no interconnect
+performance.
 """
 
 from __future__ import annotations

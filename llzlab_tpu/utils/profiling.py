@@ -3,8 +3,7 @@
 Reference counterpart: ``llz_timeprofile`` wall-clock accumulators (mount
 empty).  Here: ``jax.profiler`` trace capture (XLA/TensorBoard format),
 ``block_until_ready`` stage timers, and a roofline report comparing
-achieved bytes/s and flop/s to chip peaks — verifying the BASELINE.json:5
-"speed-of-light" claims (HBM-bound long filters, MXU-bound block conv).
+achieved bytes/s and flop/s to the device's published peaks.
 """
 
 from __future__ import annotations
@@ -19,14 +18,14 @@ import jax
 __all__ = ["StageTimer", "trace", "CHIP_PEAKS", "roofline_report",
            "collective_traffic"]
 
-# Peak specs per device kind (bf16 matmul TFLOP/s, HBM GB/s).  f32 matmul
-# at Precision.HIGHEST runs at roughly peak/6 on these parts.
+# Published peaks per device kind (dense TFLOP/s without sparsity, device
+# memory GB/s), keyed by ``jax.Device.device_kind``.  Source: NVIDIA H100
+# Tensor Core GPU data sheet, SXM5 part, at its 700 W power limit.  A card
+# set to a lower limit cannot hold these rates; report its limit beside
+# every fraction.
 CHIP_PEAKS = {
-    "TPU v5 lite": {"tflops_bf16": 197.0, "hbm_gbps": 819.0},
-    "TPU v5e": {"tflops_bf16": 197.0, "hbm_gbps": 819.0},
-    "TPU v5p": {"tflops_bf16": 459.0, "hbm_gbps": 2765.0},
-    "TPU v4": {"tflops_bf16": 275.0, "hbm_gbps": 1228.0},
-    "cpu": {"tflops_bf16": 1.0, "hbm_gbps": 50.0},
+    "NVIDIA H100 80GB HBM3": {"tflops_bf16": 989.0, "tflops_tf32": 495.0,
+                              "tflops_f32": 67.0, "hbm_gbps": 3350.0},
 }
 
 
@@ -173,9 +172,14 @@ def roofline_report(
     *, seconds: float, flops: float = 0.0, bytes_moved: float = 0.0,
     device_kind: Optional[str] = None,
 ) -> Dict[str, float]:
-    """Achieved vs peak: fraction of HBM bandwidth and MXU throughput."""
+    """Achieved vs published peak: fraction of device-memory bandwidth
+    and of bf16 tensor-core throughput.  Raises for a device kind that is
+    not in :data:`CHIP_PEAKS` (a CPU included)."""
     kind = device_kind or jax.devices()[0].device_kind
-    peaks = CHIP_PEAKS.get(kind, CHIP_PEAKS["cpu"])
+    if kind not in CHIP_PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(CHIP_PEAKS)}")
+    peaks = CHIP_PEAKS[kind]
     out = {
         "seconds": seconds,
         "achieved_gbps": bytes_moved / seconds / 1e9 if seconds else 0.0,
@@ -184,5 +188,5 @@ def roofline_report(
         "peak_tflops_bf16": peaks["tflops_bf16"],
     }
     out["hbm_fraction"] = out["achieved_gbps"] / peaks["hbm_gbps"]
-    out["mxu_fraction_bf16"] = out["achieved_tflops"] / peaks["tflops_bf16"]
+    out["tc_fraction_bf16"] = out["achieved_tflops"] / peaks["tflops_bf16"]
     return out

@@ -1,9 +1,9 @@
-"""Cost-model cross-check (VERDICT r4 #3): the hand FLOP models behind
-every ``mxu_fraction`` in the bench record vs XLA's own counter.
+"""Cost-model cross-check: the hand FLOP models behind every
+``tc_fraction`` in the bench record vs XLA's own counter.
 
-Two model bugs shipped in two rounds (r3: 75× wdft undercount; r4:
-linear-probe collapse).  This file makes a third impossible to ship
-silently: for every non-Pallas engine the bench quotes, we stage the
+Two model bugs shipped before (a 75× wdft undercount; a linear-probe
+collapse).  This file makes a third impossible to ship silently: for
+every non-Pallas engine the bench quotes, we stage the
 engine at a representative shape, compile it, and assert the model in
 ``bench/cost_models.py`` (the single source both bench.py and
 bench/all_configs.py import) agrees with
@@ -12,14 +12,14 @@ bench/all_configs.py import) agrees with
 Conventions (see cost_models.py):
 * models return pass-free FLOPs/sample; XLA counts each dot once at its
   logical f32 FLOPs regardless of precision → compare pass-free.
-* models may count MXU 128-lane padding that the HLO contraction does
-  not show (resample: K 223→256) → the tolerance band is asymmetric,
+* models may count 128-wide padding that the HLO contraction does not
+  show (resample: K 223→256) → the tolerance band is asymmetric,
   [0.95, 1.35]: a model may honestly exceed XLA by the padding factor
   but must never undercount.
 
-Pallas kernels are invisible to cost_analysis; their models are pinned
-to the kernels' weight-table SHAPES, which encode the formulation's
-true MAC count (tables are what the MXU actually contracts against).
+The Pallas kernel is invisible to cost_analysis; its model is pinned to
+the kernel's weight-table SHAPES, which encode the formulation's true
+MAC count (the tables are what the kernel contracts against).
 """
 
 import numpy as np
@@ -91,10 +91,25 @@ class TestXlaEngines:
                                                     padded=False),
                fl, "resample slab (unpadded)")
         # the padded model the bench quotes exceeds the HLO count by
-        # exactly the MXU 128-lane padding — keep that factor visible
+        # exactly the 128-wide padding — keep that factor visible
         pad = (cm.resample_flops_per_sample(147, 160, 64, padded=True)
                / cm.resample_flops_per_sample(147, 160, 64, padded=False))
         assert 1.0 <= pad <= 1.3
+
+    def test_fused_composite(self, rng):
+        import llzlab_tpu as lz
+        from llzlab_tpu.ops import fused_chain as fc
+
+        taps = lz.firwin(1024, 0.25, window="hamming")
+        rtaps = lz.resample_taps(147, 160, 64)
+        gparts, hist = fc.fir_resample_tables(taps, 147, 160, rtaps)
+        b, t = 4, 160 * 64
+        x = jnp.asarray(rng.standard_normal((b, t)).astype(np.float32))
+        fl = _xla_flops(lambda v: fc._fir_resample_impl(
+            v, gparts, None, up=147, down=160, hist_len=hist,
+            return_zf=False), x)
+        _check(b * t * cm.fused_chain_flops_per_sample(1024, 147, 160, 64),
+               fl, "fused composite")
 
     def test_iir_matmul(self, rng):
         import llzlab_tpu as lz
@@ -135,49 +150,28 @@ class TestXlaEngines:
 
 
 class TestPallasTablePins:
-    """Pallas formulations: the model must equal the MAC count the
+    """The Pallas kernel: the model must equal the MAC count the
     kernel's weight tables encode (cost_analysis cannot see inside a
     pallas_call)."""
 
-    def test_block2_tables_pin_model(self):
-        import llzlab_tpu as lz
-        from llzlab_tpu.kernels.block2_fir import (band_k,
-                                                   block2_pallas_tables)
-        from llzlab_tpu.ops.fir import block2_block
-
-        taps = lz.firwin(1024, 0.25, window="hamming")
-        block = block2_block(1024)
-        tabs = block2_pallas_tables(taps, block, "high")
-        nt, kb, lane = tabs[0].shape
-        assert lane == 128 and nt == block // 128
-        assert kb == band_k(1024, block)
-        # each 128-col tile contracts kb lanes → kb MACs/sample
-        assert cm.fir_block2_flops_per_sample(1024) == 2.0 * kb
-
     def test_fused_tables_pin_model(self):
         import llzlab_tpu as lz
-        from llzlab_tpu.kernels.fused_fir_resample import (
-            fused_program_in, fused_tables)
-        from llzlab_tpu.ops.fir import block2_block
+        from llzlab_tpu.kernels.fused_fir_resample import kernel_tables
+        from llzlab_tpu.ops.fused_chain import fir_resample_tables
 
         taps = lz.firwin(1024, 0.25, window="hamming")
         rtaps = lz.resample_taps(147, 160, 64)
-        tabs = fused_tables(taps, rtaps, 147, 160, "high")
-        whi, wlo, rhi, rlo = tabs
-        nt, kb, lane = whi.shape
-        k2p, up = rhi.shape
-        assert lane == 128 and up == 147
-        # reconstruct FLOPs/input-sample INDEPENDENTLY from the shapes:
-        # stage 1 contracts kb lanes per output sample over nyb y-blocks
-        # per program (nyb−1 of which are net output), stage 2 contracts
-        # k2p lanes per output group of `up` per `down` inputs.
-        block = block2_block(1024)
-        p_in = fused_program_in(1024, 147, 160)
-        nyb = p_in // block + 1
-        from_tables = (2.0 * kb * nyb / (nyb - 1)
-                       + 2.0 * k2p * 147.0 / 160.0)
+        gparts, _ = fir_resample_tables(taps, 147, 160, rtaps)
+        hi, lo = kernel_tables(gparts, "high")
+        assert hi.shape == lo.shape
+        chunks, bk, up_p = hi.shape
+        # every (bk, up_p) chunk is contracted once per group of 160
+        # inputs: chunks·bk·up_p MACs per 160 input samples
+        from_tables = 2.0 * chunks * bk * up_p / 160.0
+        assert cm.fused_chain_flops_per_sample(
+            1024, 147, 160, 64, padded=True) == pytest.approx(from_tables)
         assert cm.fused_chain_flops_per_sample(1024, 147, 160, 64) == (
-            pytest.approx(from_tables))
+            pytest.approx(2.0 * gparts.shape[0] * 147))
 
     def test_channelizer_model_composition(self):
         # chain model = fused stage + frames engine scaled to input rate

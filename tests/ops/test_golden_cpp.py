@@ -55,7 +55,7 @@ class TestGoldenVsScipy:
 
 
 class TestOpsVsGolden:
-    """The acceptance check: TPU-path ops ≥80 dB vs the C++ serial golden
+    """The acceptance check: device-path ops ≥80 dB vs the C++ serial golden
     on the BASELINE configs (BASELINE.json:5)."""
 
     def test_fir_config1(self, snr):

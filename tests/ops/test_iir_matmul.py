@@ -1,4 +1,4 @@
-"""MXU-matmul biquad engine vs scipy f64 golden + engine interchange."""
+"""matmul biquad engine vs scipy f64 golden + engine interchange."""
 
 import numpy as np
 import pytest

@@ -71,7 +71,7 @@ class TestSosfiltAuto:
         assert _snr(ref, np.asarray(y2)[0]) > 110.0
 
     def test_fallback_matrix_sane(self):
-        # Unknown device kind → conservative fallback floors.
+        # Unknown device kind → the scan-only fallback.
         load_engine_matrix.cache_clear()
         m = load_engine_matrix("made-up-chip-9000")
         for (_eng, _prec), (msps, floor) in m.items():
@@ -79,8 +79,8 @@ class TestSosfiltAuto:
 
 
 class TestCalibrationArtifact:
-    """Selection obeys the per-device-kind measurement artifact
-    (VERDICT r2 item 8: no hard-coded v5e constants)."""
+    """Selection obeys the per-device-kind measurement artifact (no
+    hard-coded constants)."""
 
     def test_artifact_overrides_fallback(self, tmp_path, monkeypatch):
         import json
@@ -88,7 +88,7 @@ class TestCalibrationArtifact:
         monkeypatch.setenv("LLZ_CALIB_DIR", str(tmp_path))
         load_engine_matrix.cache_clear()
         art = {
-            "device_kind": "TPU v99",
+            "device_kind": "GPU v99",
             "measured": [
                 {"engine": "matmul", "precision": "high",
                  "msps": 9000.0, "snr": 91.0},
@@ -96,11 +96,11 @@ class TestCalibrationArtifact:
                  "msps": 250.0, "snr": 136.0},
             ],
         }
-        p = calib_path("TPU v99")
+        p = calib_path("GPU v99")
         assert p.startswith(str(tmp_path))
         with open(p, "w") as f:
             json.dump(art, f)
-        m = load_engine_matrix("TPU v99")
+        m = load_engine_matrix("GPU v99")
         assert m[("matmul", "high")] == (9000.0, 91.0 - SNR_MARGIN_DB)
         assert m[("scan", "f32")] == (250.0, 136.0 - SNR_MARGIN_DB)
         # floors derive from the artifact, not from any constant table
@@ -110,46 +110,37 @@ class TestCalibrationArtifact:
     def test_missing_artifact_falls_back(self, tmp_path, monkeypatch):
         monkeypatch.setenv("LLZ_CALIB_DIR", str(tmp_path))
         load_engine_matrix.cache_clear()
-        m = load_engine_matrix("TPU v100")
+        m = load_engine_matrix("GPU v100")
         assert ("scan", "f32") in m  # fallback matrix
         load_engine_matrix.cache_clear()
 
 
 class TestCalibArtifactShape:
-    """VERDICT r3 weak #4: the calibration artifact must be measured at
-    the SAME workload shape the config-3 bench rows use — the artifact's
-    speed column ranks engines in sosfilt_auto, and a 2.6×-block-size
-    measurement ranked them on the wrong shape."""
+    """The calibration artifact must be measured at the SAME workload
+    shape the config-3 bench rows use — the artifact's speed column
+    ranks engines in sosfilt_auto, and a measurement at another block
+    size ranks them on the wrong shape."""
 
     CONFIG3_BLOCK = (2 * 48000 // 4096) * 4096  # bench/all_configs.py t3
     CONFIG3_CHANNELS = 64
 
     def test_packaged_artifacts_record_the_config_shape(self):
-        import glob
-        import json
-        import os
+        from bench import sweep
 
-        import llzlab_tpu
-
-        calib_dir = os.path.join(
-            os.path.dirname(llzlab_tpu.__file__), "calib")
-        arts = sorted(glob.glob(os.path.join(calib_dir, "*.json")))
-        assert arts, "no packaged calibration artifacts"
-        for path in arts:
-            with open(path) as f:
-                art = json.load(f)
-            # the workload string must be exactly what --write-calib
-            # measured (self-consistent with the recorded fields) …
-            assert art["workload"] == (
-                "8-section peaking-EQ cascade, "
-                f"{art['channels']}ch x {art['block']}"), path
-            # … and the shape must be the config-3 row's spec shape
-            assert art["block"] == self.CONFIG3_BLOCK, path
-            assert art["channels"] == self.CONFIG3_CHANNELS, path
-            # VERDICT r4 #4: rankings must come from compute-dominated
-            # walls — every row records its run-to-run spread and the
-            # write gate refuses >= 10%
-            for row in art["measured"]:
-                assert "spread_pct" in row, (path, row)
-                assert row["spread_pct"] < 10.0, (path, row)
-                assert row["scan_iters"] >= 1, (path, row)
+        rows = [{"engine": "scan", "precision": "f32", "snr": 136.0,
+                 "msps": 250.0, "spread_pct": 2.0, "scan_iters": 8}]
+        art = sweep.calib_record("NVIDIA H100 80GB HBM3",
+                                 sweep.IIR_CHANNELS, sweep.IIR_BLOCK, rows)
+        # the workload string is exactly what --write-calib measured …
+        assert art["workload"] == (
+            "8-section peaking-EQ cascade, "
+            f"{art['channels']}ch x {art['block']}")
+        # … and the shape is the config-3 row's spec shape
+        assert art["block"] == self.CONFIG3_BLOCK
+        assert art["channels"] == self.CONFIG3_CHANNELS
+        assert art["measured"] == rows
+        # rankings must come from compute-dominated walls: the writer
+        # refuses a row with >= 10% run-to-run spread
+        noisy = [dict(rows[0], spread_pct=12.0)]
+        with pytest.raises(ValueError, match="spread"):
+            sweep.calib_record("x", 64, self.CONFIG3_BLOCK, noisy)

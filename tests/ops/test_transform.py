@@ -1,4 +1,4 @@
-"""FFT family: MXU-factored matmul path vs numpy (SURVEY.md §4.2-3)."""
+"""FFT family: matmul-factored path vs numpy (SURVEY.md §4.2-3)."""
 
 import numpy as np
 import jax.numpy as jnp

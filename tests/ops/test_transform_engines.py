@@ -1,10 +1,10 @@
 """rfft/irfft engine parity: every engine vs numpy f64 (SURVEY §4.2).
 
-The r4 engine family (dense rDFT, real-input four-step, real-output
-inverse, packed-half, real16 factor split) is selected by measured TPU
-ranking (docs/ROOFLINE.md); these tests pin that every selectable
-engine is CORRECT on every platform, so the auto switch can never trade
-away correctness.
+The matmul engine family (dense rDFT, real-input four-step, real-output
+inverse, packed-half, real16 factor split) is selected by size and
+precision under ``method="matmul"``; these tests pin that every
+selectable engine is CORRECT on every platform, so the switch can never
+trade away correctness.
 """
 
 import numpy as np
@@ -98,10 +98,9 @@ class TestComplexDenseEngine:
 
 
 class TestSizeAwareAuto:
-    """VERDICT r4 #7: the auto engine must follow the MEASURED
-    size×precision ranking (bench/tpu_sweep.py --suite fftsize, r5),
-    not a single-size extrapolation, and the O(n²) dense tables must be
-    capped."""
+    """The matmul engine choice follows a size×precision table (untuned
+    on the GPU until ``bench/sweep.py --suite fftsize`` runs there), and
+    the O(n²) dense tables must be capped."""
 
     @pytest.mark.parametrize("n,prec,expect", [
         (256, "high", "dense"), (2048, "high", "dense"),

@@ -55,8 +55,8 @@ class TestSpectralGainSharded:
         assert np.sqrt(np.mean(mid**2)) < 1e-3
 
     def test_cwola_engine_matches_reference_engine(self, mesh24, snr):
-        """r5: the sharded path's composed-WOLA engine (forced on CPU —
-        auto resolves to it only on TPU) must match the framed
+        """The sharded path's composed-WOLA engine (forced: auto
+        resolves to the reference engine) must match the framed
         reference engine everywhere, including shard boundaries."""
         rng = np.random.default_rng(113)
         x = rng.standard_normal((8, 4 * 4096)).astype(np.float32)

@@ -70,9 +70,9 @@ class TestChainBasics:
         output matches the scipy f64 golden."""
         taps = lz.firwin(1024, 0.4)
         rtaps = lz.resample_taps(147, 160, 64)
-        st = FusedFirResampleStage(taps, 147, 160, rtaps=rtaps, channels=8)
+        st = FusedFirResampleStage(taps, 147, 160, rtaps=rtaps)
         # On the CPU test mesh the engine resolves to the XLA composite;
-        # on TPU the same constructor resolves to the Pallas kernel.
+        # on the GPU the same constructor resolves to the Pallas kernel.
         assert st.engine == "composite"
         chain = Chain([st])
         m = chain.block_multiple
@@ -94,15 +94,18 @@ class TestChainBasics:
         ref = ss.upfirdn(rtaps, ref_f, 147, 160, axis=-1)
         assert snr(ref[:, : y_full.shape[-1]], y_full) >= 100.0
 
-    def test_fused_stage_resolves_pallas_on_tpu_envelope(self):
-        """The auto resolve picks the Pallas kernel exactly when the
-        static envelope + channel hint accept (simulated via engine=)."""
+    def test_fused_stage_resolves_pallas_on_gpu(self, monkeypatch):
+        """The auto resolve picks the Pallas kernel on the GPU and the
+        composite on the CPU; both carry the same state."""
+        from llzlab_tpu.ops import fused_chain
+
         taps = lz.firwin(1024, 0.4)
-        st = FusedFirResampleStage(taps, 147, 160, engine="pallas")
-        from llzlab_tpu.kernels.fused_fir_resample import (
-            fused_program_in, fused_state_len)
-        assert st.block_multiple == fused_program_in(1024, 147, 160)
-        assert st._state_len == fused_state_len(1024)
+        st_c = FusedFirResampleStage(taps, 147, 160)
+        monkeypatch.setattr(fused_chain, "backend", lambda: "gpu")
+        st_g = FusedFirResampleStage(taps, 147, 160)
+        assert (st_c.engine, st_g.engine) == ("composite", "pallas")
+        assert st_g.block_multiple == st_c.block_multiple == 160
+        assert st_g._state_len == st_c._state_len == 1120
 
     def test_fused_stage_pallas_streaming_interpret(self, snr):
         """The Pallas engine path THROUGH the stage (interpret mode on
@@ -111,7 +114,7 @@ class TestChainBasics:
         taps = lz.firwin(256, 0.4)
         rtaps = lz.resample_taps(3, 4, 8)
         st = FusedFirResampleStage(taps, 3, 4, rtaps=rtaps,
-                                   engine="pallas", channels=8)
+                                   engine="pallas")
         chain = Chain([st])
         m = chain.block_multiple
         rng = np.random.default_rng(55)
@@ -239,8 +242,8 @@ class TestSpectralGainStreaming:
     # normalisation, identical in shape for the reference engine).
 
     def test_wdft_engine_streamed_equals_its_oneshot(self, snr):
-        """The TPU default engine ("wdft": frame-free windowed
-        shifted-matmul): streaming invariance vs the SAME engine's
+        """The "wdft" engine (frame-free windowed shifted-matmul):
+        streaming invariance vs the SAME engine's
         one-block run (shape-dependent XLA reduction tiling makes this
         ulp-level, not bitwise)."""
         rng = np.random.default_rng(61)

@@ -1,6 +1,7 @@
-"""Channelizer fir_method='fused' — the productized fused FIR+resample
-Pallas engine (VERDICT r2 missing #3): step/streaming/fallback parity
-with the unfused engines, interpreter mode on CPU (SURVEY.md §4.3)."""
+"""Channelizer fir_method='fused' — FIR + resample as one composite map
+(the Pallas kernel on the GPU, the XLA composite on the CPU; the kernel
+runs here in interpreter mode): step/streaming parity with the golden and
+between engines (SURVEY.md §4.3)."""
 
 import numpy as np
 import pytest
@@ -10,11 +11,11 @@ import jax.numpy as jnp
 
 import llzlab_tpu as lz
 from llzlab_tpu.chains.channelizer import Channelizer
-from llzlab_tpu.kernels import fused_fir_resample as ff
+from llzlab_tpu.ops import fused_chain as fc
 
 
-def _mk(fir_method):
-    return Channelizer(
+def _mk(fir_method, engine=None):
+    chan = Channelizer(
         fir_taps=lz.firwin(256, 0.4),
         up=3,
         down=4,
@@ -22,6 +23,9 @@ def _mk(fir_method):
         taps_per_phase=8,
         fir_method=fir_method,
     )
+    if engine is not None:
+        chan.fused_engine = engine
+    return chan
 
 
 @pytest.fixture(scope="module")
@@ -39,12 +43,14 @@ class TestChannelizerFused:
     def test_block_multiple_matches_program(self):
         chan = _mk("fused")
         m = chan.block_multiple()
-        p = ff.fused_program_in(256, 3, 4)
-        assert m % p == 0
-        assert (m * 3 // 4) % 128 == 0  # frames align with fft_n
+        assert m % 4 == 0                 # whole resampler groups
+        assert (m * 3 // 4) % 128 == 0    # frames align with fft_n
+        assert chan.h_fir == fc.fir_resample_state_len(256, 3, 4, 24)
+        assert chan.h_rs == 0
 
-    def test_step_vs_scipy_golden(self, snr):
-        chan = _mk("fused")
+    @pytest.mark.parametrize("engine", ["composite", "pallas"])
+    def test_step_vs_scipy_golden(self, snr, engine):
+        chan = _mk("fused", engine)
         m = chan.block_multiple()
         c = 8
         rng = np.random.default_rng(90)
@@ -61,8 +67,9 @@ class TestChannelizerFused:
             z64[:, : nf * 128].reshape(c, nf, 128), axis=-1)
         assert snr(ref, np.asarray(spec)) >= 100.0
 
-    def test_streaming_superblock_carry_bit_exact(self):
-        chan = _mk("fused")
+    @pytest.mark.parametrize("engine", ["composite", "pallas"])
+    def test_streaming_superblock_carry_bit_exact(self, engine):
+        chan = _mk("fused", engine)
         m = chan.block_multiple()
         c = 8
         rng = np.random.default_rng(91)
@@ -74,28 +81,28 @@ class TestChannelizerFused:
         np.testing.assert_array_equal(got, np.asarray(full))
 
     def test_fallback_low_channels_matches_kernel_math(self, snr):
-        """c=4 rejects the kernel envelope; the unfused fallback on the
-        same state layout must agree with the fused result on the same
-        signal (first 4 of 8 channels — channels are independent)."""
-        chan = _mk("fused")
+        """Any channel count runs the kernel (no envelope): c=4 gives
+        the same spectra and state as the first 4 of 8 channels, and the
+        kernel's state interchanges with the composite's."""
+        chan = _mk("fused", "pallas")
         m = chan.block_multiple()
         rng = np.random.default_rng(92)
         x = rng.standard_normal((8, m)).astype(np.float32)
         spec8, st8 = chan.step(jnp.asarray(x), chan.init_state(8))
         spec4, st4 = chan.step(jnp.asarray(x[:4]), chan.init_state(4))
         assert snr(np.asarray(spec8)[:4], np.asarray(spec4)) >= 110.0
-        # fallback streaming state must interchange with the kernel's
-        np.testing.assert_allclose(
-            np.asarray(st4[0]), np.asarray(st8[0])[:4], rtol=0, atol=0)
-        s2_8, _ = chan.step(jnp.asarray(x), st8)
-        s2_4, _ = chan.step(jnp.asarray(x[:4]), st4)
-        assert snr(np.asarray(s2_8)[:4], np.asarray(s2_4)) >= 110.0
+        np.testing.assert_array_equal(np.asarray(st4[0]),
+                                      np.asarray(st8[0])[:4])
+        comp = _mk("fused", "composite")
+        s2_k, _ = chan.step(jnp.asarray(x[:4]), st4)
+        s2_c, _ = comp.step(jnp.asarray(x[:4]), st4)
+        assert snr(np.asarray(s2_c), np.asarray(s2_k)) >= 110.0
 
     def test_fallback_streaming_carry(self, snr):
-        """Fallback path (c=4): split-and-carry == one-shot."""
-        chan = _mk("fused")
+        """Odd channel count (c=5): split-and-carry == one-shot."""
+        chan = _mk("fused", "pallas")
         m = chan.block_multiple()
-        c = 4
+        c = 5
         rng = np.random.default_rng(93)
         x = rng.standard_normal((c, 2 * m)).astype(np.float32)
         full, _ = chan.step(jnp.asarray(x), chan.init_state(c))
@@ -109,10 +116,9 @@ class TestFirResampleEngines:
     def test_pallas_engine_matches_composite(self, snr):
         taps = lz.firwin(256, 0.3)
         rtaps = lz.resample_taps(3, 4, 8)
-        p = ff.fused_program_in(256, 3, 4)
         rng = np.random.default_rng(94)
         x = jnp.asarray(
-            rng.standard_normal((8, 4 * p)).astype(np.float32))
+            rng.standard_normal((8, 2048)).astype(np.float32))
         zc = lz.fir_resample(x, taps, 3, 4, rtaps=rtaps,
                              engine="composite")
         zp = lz.fir_resample(x, taps, 3, 4, rtaps=rtaps, engine="pallas",
@@ -120,19 +126,30 @@ class TestFirResampleEngines:
         assert np.asarray(zp).shape == np.asarray(zc).shape
         assert snr(np.asarray(zc), np.asarray(zp)) >= 110.0
 
-    def test_engine_resolution_cpu(self):
-        from llzlab_tpu.ops.fused_chain import fir_resample_engine
+    def test_engine_resolution_cpu(self, monkeypatch):
+        from llzlab_tpu.ops import fused_chain
 
-        # CPU backend always resolves to the XLA composite
-        assert fir_resample_engine(8, 256, 3, 4, 24, 2048) == "composite"
+        # CPU backend resolves to the XLA composite, the GPU to the kernel
+        assert fused_chain.fir_resample_engine() == "composite"
+        monkeypatch.setattr(fused_chain, "backend", lambda: "gpu")
+        assert fused_chain.fir_resample_engine() == "pallas"
+
+    @pytest.mark.parametrize("backend,tier,want", [
+        ("cpu", "high", "ols"), ("gpu", "high", "fused"),
+        ("gpu", "default", "fused"), ("gpu", "highest", "ols")])
+    def test_channelizer_auto_per_tier(self, monkeypatch, backend, tier,
+                                       want):
+        from llzlab_tpu.chains import channelizer
+
+        monkeypatch.setattr(channelizer, "backend", lambda: backend)
+        monkeypatch.setenv("LLZ_MATMUL_PRECISION", tier)
+        assert channelizer.fir_method_auto() == want
+        assert Channelizer(fir_method="auto").fir_method == want
 
     def test_state_len_per_engine(self):
-        from llzlab_tpu.ops.fused_chain import fir_resample_state_len
-
-        assert fir_resample_state_len(1024, 147, 160, 147 * 64,
-                                      engine="pallas") == 2048
-        assert fir_resample_state_len(1024, 147, 160, 147 * 64,
-                                      engine="composite") == 1120
+        # one history length whatever the engine
+        assert fc.fir_resample_state_len(1024, 147, 160, 147 * 64) == 1120
+        assert fc.fir_resample_state_len(256, 3, 4, 24) == 264
 
     def test_spec_format_pair_matches_complex(self, snr):
         """spec_format='pair' (r5 frames engine: ONE combined-table
